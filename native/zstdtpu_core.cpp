@@ -1,6 +1,6 @@
 // zstdtpu_core — native host engine for the serial byte-stream stages.
 //
-// The TPU owns the data-parallel compute (match candidates, histograms,
+// The device owns the data-parallel compute (match candidates, histograms,
 // bit-packing scans); these routines cover the per-block serial state
 // machines that a host CPU finishes faster than a Python loop:
 //   * Huffman X1 stream decode   (HufDecompress.cs:264 role)
@@ -1064,9 +1064,9 @@ int64_t dfast_find_matches(const uint8_t* src, int64_t src_len,
 // ---------------------------------------------------------------------------
 
 // cand[i] = best previous position with the same hash for block position i
-// (computed on the TPU via the sort-based candidate stage), -1 if none.
+// (computed on the device via the sort-based candidate stage), -1 if none.
 // This loop validates, extends, probes repcodes, and emits sequences —
-// the serial half of the TPU-first split.
+// the serial half of the device/host split.
 int64_t hybrid_select(const uint8_t* src, int64_t n_valid,
                       const int32_t* cand, uint32_t* rep_io,
                       uint32_t* out_ll, uint32_t* out_ml, uint32_t* out_ob,

@@ -127,6 +127,26 @@ class TestShardedPipeline:
         assert out == b"".join(chunks)
         assert tel["device_frames"] == 8
         assert "gather_ms" in tel and len(tel["device_shards"]) >= 2
+        # each shard's rows are held by its own one device
+        held = [s["devices"] for s in tel["device_shards"]]
+        assert all(len(h) == 1 for h in held)
+        assert len({h[0] for h in held}) == len(held) == 8
+
+    def test_records_device_shards_on_their_devices(self, text_corpus):
+        """compress_records_device reports the devices that hold each
+        shard's frame rows: two shards, two devices, frames host-decode."""
+        from zstdsharp_tpu.decode.frame import decompress
+        from zstdsharp_tpu.parallel.pipeline import (compress_records_device,
+                                                     make_mesh)
+
+        records = [text_corpus[i * 3000:(i + 1) * 3000] for i in range(4)]
+        mesh = make_mesh(jax.devices()[:2])
+        tel: dict = {}
+        frames = compress_records_device(records, mesh, telemetry=tel)
+        assert [decompress(f) for f in frames] == records
+        assert tel["host_frames"] == 0
+        assert [s["devices"] for s in tel["device_shards"]] == [
+            [str(d)] for d in mesh.devices.flat]
 
     def test_graft_entry(self):
         import __graft_entry__ as g
@@ -135,73 +155,6 @@ class TestShardedPipeline:
         out = jax.jit(fn)(*args)
         assert out["nseq"].shape == (4,)
         g.dryrun_multichip(8)
-
-
-class TestDeviceSeqDecode:
-    def test_matches_host_decoder(self, text_corpus):
-        """Batched device sequence decode must equal the host reference on
-        real zstd blocks (tables + payloads extracted from oracle frames)."""
-        import os
-        import zstandard
-
-        os.environ["ZSTDTPU_NO_NATIVE"] = "1"  # force the Python block parser
-        try:
-            from zstdsharp_tpu.decode.block import (EntropyState,
-                                                    decode_literals,
-                                                    decode_sequence_headers,
-                                                    decode_sequences)
-            from zstdsharp_tpu.constants import BlockType
-            from zstdsharp_tpu.decode.frame import parse_frame_header
-            from zstdsharp_tpu.ops.seq_decode import (decode_sequences_batch,
-                                                      pack_dtables)
-
-            frame = zstandard.ZstdCompressor(level=5).compress(text_corpus[:200_000])
-            hdr = parse_frame_header(frame)
-            pos = hdr.header_size
-            entropy = EntropyState()
-            payloads, bits, nseqs, lls, mls, ofs = [], [], [], [], [], []
-            tabs_ll, tabs_of, tabs_ml, reps = [], [], [], []
-            while True:
-                bh = int.from_bytes(frame[pos : pos + 3], "little")
-                btype = BlockType((bh >> 1) & 3)
-                bsize = bh >> 3
-                pos += 3
-                assert btype == BlockType.COMPRESSED
-                block = frame[pos : pos + bsize]
-                lit, consumed = decode_literals(block, entropy)
-                nb, ll_t, of_t, ml_t, n2 = decode_sequence_headers(block[consumed:], entropy)
-                payload = block[consumed + n2 :]
-                rep_now = list(entropy.rep)
-                l, m, o = decode_sequences(payload, nb, ll_t, of_t, ml_t, entropy.rep)
-                payloads.append(payload)
-                last = payload[-1]
-                bits.append((len(payload) - 1) * 8 + last.bit_length() - 1)
-                nseqs.append(nb)
-                lls.append(l); mls.append(m); ofs.append(o)
-                tabs_ll.append(ll_t); tabs_of.append(of_t); tabs_ml.append(ml_t)
-                reps.append(rep_now)
-                pos += bsize
-                if bh & 1:
-                    break
-        finally:
-            os.environ.pop("ZSTDTPU_NO_NATIVE", None)
-
-        B = len(payloads)
-        P = max(len(p) for p in payloads)
-        buf = np.zeros((B, 8 + P), np.uint8)
-        for b, p in enumerate(payloads):
-            buf[b, 8 : 8 + len(p)] = np.frombuffer(p, np.uint8)
-        max_seq = max(nseqs)
-        d_ll, d_ml, d_of = decode_sequences_batch(
-            jnp.asarray(buf), jnp.asarray(np.array(bits, np.int64)),
-            jnp.asarray(np.array(nseqs, np.int32)),
-            pack_dtables(tabs_ll), pack_dtables(tabs_of), pack_dtables(tabs_ml),
-            jnp.asarray(np.array(reps, np.uint32)), max_seq)
-        for b in range(B):
-            n = nseqs[b]
-            np.testing.assert_array_equal(np.asarray(d_ll[b, :n]), lls[b])
-            np.testing.assert_array_equal(np.asarray(d_ml[b, :n]), mls[b])
-            np.testing.assert_array_equal(np.asarray(d_of[b, :n]), ofs[b])
 
 
 def test_ldm_anchor_mask_matches_serial_gear():

@@ -104,7 +104,8 @@ class TestDeviceEncode:
         big = _records(1, 200_000, seed=13)[0]
         small = _records(1, 5_000, seed=14)[0]
         frames, stats = compress_batch_device([big, small], materialize=True)
-        assert stats == {"device_frames": 1, "host_frames": 1}
+        assert stats == {"device_frames": 1, "host_frames": 1,
+                         "devices": [str(jax.devices()[0])]}
         assert decompress(frames[0]) == big
         assert decompress(frames[1]) == small
 

@@ -2,8 +2,8 @@
 kernels + the pointer-jumping LZ executor, verified without copying the
 payload back (the on-device comparison reduces to one boolean).
 
-Covers VERDICT r2 item 2: `decode_batch_device` is the production
-consumer of the device decode plane (bench.py reports its throughput).
+`decode_batch_device` is the production consumer of the device decode
+plane (bench.py and chip_smoke.py report its throughput).
 """
 
 import numpy as np
@@ -39,6 +39,36 @@ class TestDevicePipeline:
         assert stats["device_frames"] == 12
         for got, want in zip(results, recs):
             assert got == want
+
+    def test_batches_in_one_bucket_reuse_compiled_programs(self):
+        """Batches whose stream counts and raw pools differ but fall in
+        the same buckets run both kernels and the executor without a new
+        trace: lanes, the raw pool and host rows are padded on the host."""
+        from zstdsharp_tpu.decode import device_pipeline as dp
+        from zstdsharp_tpu.ops import device_fse as df
+        from zstdsharp_tpu.ops import device_huf as dh
+
+        r = np.random.default_rng(21)
+        p = r.dirichlet(np.ones(40) * 0.5)
+        text = [w + (97 + r.choice(40, 8_000, p=p)).astype(np.uint8).tobytes()
+                for w in _records(6, 8_000, seed=21)]
+        noise = r.integers(0, 256, 3_000, dtype=np.uint8).tobytes()
+
+        def traces():
+            return [f._cache_size() for c in (dh._FN_CACHE, df._FN_CACHE,
+                                              dp._FUSED_CACHE)
+                    for f in c.values()]
+
+        seen = []
+        for recs in (text + [noise], text[1:] + [noise[:2_000]]):
+            frames = [compress(x, 3) for x in recs]
+            plan = plan_batch(frames)
+            seen.append((plan.nb.n_huf, plan.nb.n_fse))
+            results, stats = decode_batch_device(frames, materialize=True)
+            assert results == recs and stats["host_frames"] == 0
+            seen.append(traces())
+        assert seen[0] != seen[2]        # the batches differ in lanes
+        assert seen[3] == seen[1]        # and share every compiled program
 
     def test_no_d2h_verify(self):
         # The consumer-side check runs on device: upload the expectation,
@@ -277,7 +307,8 @@ class TestMultiBlockDevice:
         assert len(plan.mb_frames) == 4
         res, stats = decode_batch_device(frames, materialize=True)
         assert res == recs
-        assert stats == {"device_frames": 4, "host_frames": 0}
+        assert stats == {"device_frames": 4, "host_frames": 0,
+                         "devices": [str(jax.devices()[0])]}
 
     def test_corrupt_mb_checksum_raises(self):
         from zstdsharp_tpu.errors import ZstdError

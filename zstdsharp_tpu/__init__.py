@@ -1,7 +1,7 @@
-"""zstdsharp_tpu — a TPU-native Zstandard (RFC 8878) codec framework.
+"""zstdsharp_tpu — an accelerator-native Zstandard (RFC 8878) codec framework.
 
 A from-scratch reimplementation of the capabilities of CHeavyarms/ZstdSharp
-(itself a port of zstd v1.5.1), designed TPU-first: JAX/XLA/Pallas kernels
+(itself a port of zstd v1.5.1), designed for the device: JAX/XLA/Pallas kernels
 for the data-parallel hot stages over fixed-size blocks, a host layer for
 framing/streaming, and `jax.sharding` data parallelism across chips.
 

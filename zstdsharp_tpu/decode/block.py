@@ -59,7 +59,7 @@ class EntropyState:
 
 @dataclass
 class Sequences:
-    """Decoded sequence arrays for one block (the TPU-facing layout)."""
+    """Decoded sequence arrays for one block (the device-facing layout)."""
 
     lit_len: np.ndarray  # uint32 [nbSeq]
     match_len: np.ndarray  # uint32 [nbSeq]

@@ -494,10 +494,10 @@ class Decompressor:
         return [self.unwrap(f, max_decompressed_size) for f in frames]
 
     def unwrap_many_device(self, frames: list[bytes]):
-        """Batch unwrap on the TPU: entropy kernels + LZ execution run
-        on-device and the decoded rows STAY in HBM for on-device consumers
-        (decode/device_pipeline.py documents the coverage envelope; frames
-        outside it are decoded by the host engine).
+        """Batch unwrap on the GPU: entropy kernels + LZ execution run
+        on-device and the decoded rows STAY in device memory for on-device
+        consumers (decode/device_pipeline.py documents the coverage
+        envelope; frames outside it are decoded by the host engine).
 
         Returns (outputs, lengths, host_results): outputs is a list of
         uint8 [B, O] device arrays whose rows follow plan order, lengths

@@ -261,7 +261,7 @@ class ZstdCompressionDict:
 
 def _dmer_hashes(data: np.ndarray, d: int, f: int) -> np.ndarray:
     """Rolling d-mer hash into 2^f buckets (FASTCOVER_hashPtrToIndex:14 role;
-    vectorized — this is the stage that maps 1:1 onto a TPU segment-sum)."""
+    vectorized — this is the stage that maps 1:1 onto a device segment-sum)."""
     n = len(data) - d + 1
     if n <= 0:
         return np.empty(0, dtype=np.int64)

@@ -5,15 +5,17 @@ decode/device_pipeline.py).
 wholly on the device: greedy parse, FSE sequence coding (permutation-map
 suffix composition), bit packing and frame assembly all run inside one
 XLA program per size bucket (ops/device_encode.py).  Outputs are
-device-resident uint8 frame rows in HBM — the deployment shape for
-record-batch compression feeding on-device producers (checkpoint/record
-writers), where D2H bandwidth never enters until the frames are shipped.
+device-resident uint8 frame rows in device memory — the deployment shape
+for record-batch compression feeding on-device producers (checkpoint and
+record writers), where D2H bandwidth never enters until the frames ship.
 
-Envelope: records <= 128KB become single-segment single-block frames
-(predefined FSE tables, raw literals, raw-block fallback when entropy
-coding does not pay).  Larger records route to the host engine, reported
-in the stats.  Every produced frame is standard zstd — decodable by
-libzstd, the host tier, and the device decode plane.
+Envelope: records <= 128KB become single-segment single-block frames:
+4-stream Huffman literals when they pay (tables built on the host from
+device histograms, streams packed on the device) else raw literals; per
+lane a fresh, RLE or predefined FSE table for each sequence channel; a raw
+block when entropy coding does not pay.  Larger records route to the
+host engine, reported in the stats.  Every produced frame is standard
+zstd — decodable by libzstd, the host tier, and the device decode plane.
 
 Reference displaced: ZSTD_compressSequences/ZSTD_encodeSequences_body
 (ZstdCompressSequences.cs:585) and the block writer
@@ -92,5 +94,8 @@ def compress_batch_device(records, materialize: bool = False,
         for k, ri in enumerate(part):
             frames[ri] = h[k, :ln[k]].tobytes()
     stats = {"device_frames": sum(len(p) for p, _, _ in chunks),
-             "host_frames": len(host_results)}
+             "host_frames": len(host_results),
+             # where the frames were built: the devices holding the rows
+             "devices": sorted({str(d) for _, rows, _ in chunks
+                                for d in rows.devices()})}
     return frames, stats

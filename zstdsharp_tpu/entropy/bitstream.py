@@ -11,7 +11,7 @@ Viewing the stream as a little-endian bit vector b[0..T):
 * end mark: single 1 bit at position T-1 (followed only by zero padding)
 * reader: pos starts at T-1; read(n) returns bits [pos-n, pos) and moves down.
 
-This formulation is what makes the TPU mapping work: *encoding* becomes an
+This formulation is what makes the data-parallel mapping work: *encoding* becomes an
 exclusive prefix-scan of ``nbits`` followed by a parallel scatter-OR into
 64-bit words (:func:`pack_bits`), and *decoding at known offsets* becomes a
 parallel gather (:func:`extract_bits`).  The scalar classes below implement
@@ -115,7 +115,7 @@ class BitWriter:
 
 
 def pack_bits(values: np.ndarray, nbits: np.ndarray) -> bytes:
-    """Vectorized backward-bitstream packer (the TPU reformulation).
+    """Vectorized backward-bitstream packer (the data-parallel reformulation).
 
     Equivalent to ``BitWriter().add(v_i, n_i) for i in order; close()`` but
     computed as: exclusive prefix-scan of nbits -> per-field word scatter.

@@ -3,8 +3,8 @@ EntropyCommon.cs:292).
 
 Decode: weight parsing (HUF_readStats), X1 single-symbol table
 (HUF_readDTableX1), 1-stream and 4-stream decoders.  The X2 double-symbol
-decoder is a pure speed variant of the same format and lives in the TPU
-kernel path (ops/), not here.
+decoder is a pure speed variant of the same format; the batched device
+decoder lives in ops/device_huf.py.
 
 Encode: tree build (two-queue merge over count-sorted symbols, height-limited
 to <= 12 bits like HUF_setMaxHeight), weight serialization (FSE-compressed or

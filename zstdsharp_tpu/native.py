@@ -1,14 +1,19 @@
 """ctypes bindings for the native host engine (native/zstdtpu_core.cpp).
 
-Builds the shared library on first use (g++ -O3) and caches it next to the
-source.  Every binding has a pure-Python fallback in the reference modules;
+Builds the shared library from the tracked sources on first use (g++) into
+``native/build/<key>/``, where the key hashes the source, the compiler
+flags and this host's CPU (the build targets ``-march=native``), so a
+binary built on another host or from other sources is never loaded.
+Every binding has a pure-Python fallback in the reference modules;
 `AVAILABLE` gates usage so the framework works without a toolchain.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 import sys
 import threading
@@ -18,9 +23,77 @@ import numpy as np
 
 _REPO = Path(__file__).resolve().parent.parent
 _SRC = _REPO / "native" / "zstdtpu_core.cpp"
-_LIB = _REPO / "native" / "libzstdtpu_core.so"
 _EXT_SRC = _REPO / "native" / "ztpy.cpp"
-_EXT_LIB = _REPO / "native" / "_ztpy.so"
+BUILD_DIR = _REPO / "native" / "build"
+# -O2 globally (the branchy matchers measure ~13% faster than at -O3); the
+# decode hot loops pin O3 via function attributes.
+_CORE_FLAGS = ("-O2", "-march=native", "-shared", "-fPIC", "-std=c++17")
+_EXT_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
+
+
+def _host_cpu() -> str:
+    """This host's CPU model and feature flags (part of the build key)."""
+    keep = ("model name", "flags", "Features", "CPU implementer", "CPU part")
+    fields: dict = {}
+    try:
+        for line in Path("/proc/cpuinfo").read_text().splitlines():
+            k, _, v = line.partition(":")
+            k = k.strip()
+            if k in keep and k not in fields:
+                fields[k] = v.strip()
+    except OSError:
+        pass
+    return repr((platform.machine(), sorted(fields.items())))
+
+
+def build_key(sources, flags) -> str:
+    """Key of a build: its source texts, its flags and this host's CPU."""
+    h = hashlib.sha256()
+    for src in sources:
+        h.update(hashlib.sha256(src).digest())
+    h.update(repr(tuple(flags)).encode())
+    h.update(_host_cpu().encode())
+    return h.hexdigest()[:20]
+
+
+def lib_path() -> Path:
+    """Where the core library for the current sources and host lives."""
+    return (BUILD_DIR / build_key([_SRC.read_bytes()], _CORE_FLAGS)
+            / "libzstdtpu_core.so")
+
+
+def _ext_path(core: Path) -> Path:
+    import sysconfig
+
+    flags = _EXT_FLAGS + (sysconfig.get_paths()["include"], sys.version,
+                          core.parent.name)
+    return (BUILD_DIR / build_key([_EXT_SRC.read_bytes()], flags)
+            / "_ztpy.so")
+
+
+def _compile(out: Path, cmd_for, what: str, timeout: int) -> bool:
+    """Build `out` once across processes: under a lock in its directory,
+    into a temporary name renamed into place when the compiler succeeds."""
+    import fcntl
+
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with open(out.parent / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():
+            return True
+        tmp = out.with_name(out.name + ".tmp")
+        try:
+            r = subprocess.run(cmd_for(tmp), capture_output=True, text=True,
+                               timeout=timeout)
+        except (OSError, subprocess.TimeoutExpired) as e:  # pragma: no cover
+            print(f"{what} build error: {e}", file=sys.stderr)
+            return False
+        if r.returncode != 0:
+            print(f"{what} build failed:\n{r.stderr}", file=sys.stderr)
+            return False
+        os.replace(tmp, out)
+        return True
+
 
 class DPlaneCtx(ctypes.Structure):
     """Mirror of ZtDPlaneCtx (native/zstdtpu_core.cpp): the device-plane
@@ -50,41 +123,20 @@ _ext_tried = False
 AVAILABLE = False
 
 
-def _build() -> bool:
-    try:
-        # -O2 globally (the branchy matchers measure ~13% faster than at
-        # -O3); the decode hot loops pin O3 via function attributes.
-        cmd = ["g++", "-O2", "-march=native", "-shared", "-fPIC", "-std=c++17",
-               str(_SRC), "-o", str(_LIB)]
-        r = subprocess.run(cmd, capture_output=True, text=True, timeout=240)
-        if r.returncode != 0:
-            print(f"zstdtpu_core build failed:\n{r.stderr}", file=sys.stderr)
-            return False
-        return True
-    except (OSError, subprocess.TimeoutExpired) as e:  # pragma: no cover
-        print(f"zstdtpu_core build error: {e}", file=sys.stderr)
-        return False
+def _build(out: Path) -> bool:
+    return _compile(out, lambda tmp: ["g++", *_CORE_FLAGS, str(_SRC), "-o",
+                                      str(tmp)], "zstdtpu_core", 240)
 
 
-def _build_ext() -> bool:
+def _build_ext(out: Path, core: Path) -> bool:
     """CPython extension (zero-copy PyBytes entry points); optional —
     everything it offers has a ctypes fallback."""
     import sysconfig
 
-    try:
-        cmd = ["g++", "-O2", "-shared", "-fPIC", "-std=c++17",
-               f"-I{sysconfig.get_paths()['include']}",
-               str(_EXT_SRC), "-o", str(_EXT_LIB),
-               f"-L{_LIB.parent}", "-lzstdtpu_core",
-               f"-Wl,-rpath,{_LIB.parent}"]
-        r = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
-        if r.returncode != 0:
-            print(f"_ztpy build failed:\n{r.stderr}", file=sys.stderr)
-            return False
-        return True
-    except (OSError, subprocess.TimeoutExpired) as e:  # pragma: no cover
-        print(f"_ztpy build error: {e}", file=sys.stderr)
-        return False
+    return _compile(out, lambda tmp: [
+        "g++", *_EXT_FLAGS, f"-I{sysconfig.get_paths()['include']}",
+        str(_EXT_SRC), "-o", str(tmp), f"-L{core.parent}", "-lzstdtpu_core",
+        f"-Wl,-rpath,{core.parent}"], "_ztpy", 120)
 
 
 def get_ext():
@@ -99,18 +151,17 @@ def get_ext():
         if os.environ.get("ZSTDTPU_NO_NATIVE") or os.environ.get(
                 "ZSTDTPU_NO_EXT"):
             return None
-    if get_lib() is None:   # ensures libzstdtpu_core.so exists & is fresh
+    if get_lib() is None:   # builds the core library for these sources
         return None
     with _lock:
-        if (not _EXT_LIB.exists()
-                or _EXT_LIB.stat().st_mtime < _EXT_SRC.stat().st_mtime
-                or _EXT_LIB.stat().st_mtime < _SRC.stat().st_mtime):
-            if not _build_ext():
-                return None
+        core = lib_path()
+        ext = _ext_path(core)
+        if not ext.exists() and not _build_ext(ext, core):
+            return None
         try:
             import importlib.util
 
-            spec = importlib.util.spec_from_file_location("_ztpy", _EXT_LIB)
+            spec = importlib.util.spec_from_file_location("_ztpy", ext)
             mod = importlib.util.module_from_spec(spec)
             spec.loader.exec_module(mod)
             _ext = mod
@@ -127,11 +178,11 @@ def _load():
             return _lib
         if os.environ.get("ZSTDTPU_NO_NATIVE"):
             return None
-        if not _LIB.exists() or _LIB.stat().st_mtime < _SRC.stat().st_mtime:
-            if not _build():
-                return None
+        path = lib_path()
+        if not path.exists() and not _build(path):
+            return None
         try:
-            lib = ctypes.CDLL(str(_LIB))
+            lib = ctypes.CDLL(str(path))
         except OSError:  # pragma: no cover
             return None
 

@@ -1,8 +1,9 @@
-"""Device-side primitives shared by the TPU kernels.
+"""Device-side primitives shared by the device kernels.
 
 Everything here is shape-static, jit-friendly jnp code: u32 window views,
 multiplicative hashes (ZSTD_hash4, ZstdCompressInternal.cs:340), and the
-prefix-scan bit packer (the TPU reformulation of BIT_addBits, SURVEY.md §7).
+prefix-scan bit packer (the data-parallel reformulation of BIT_addBits,
+SURVEY.md §7).
 """
 
 from __future__ import annotations
@@ -79,9 +80,8 @@ def match_lengths(block: jax.Array, cand: jax.Array,
     mis-estimate into territory the caller's n-idx clamp cuts off, or
     UNDERestimate — both keep every counted byte genuinely equal).
 
-    All arithmetic is uint32 (an 8-byte step = a u32 pair): TPUs have no
-    native 64-bit lanes, so a u64 formulation pays XLA's emulation tax and
-    forces x64 tracing mode.
+    All arithmetic is uint32 (an 8-byte step = a u32 pair), so the stage
+    traces without x64 mode and every lane op stays 32 bits wide.
     """
     n = block.shape[0]
     idx = jnp.arange(n, dtype=jnp.int32)
@@ -139,8 +139,8 @@ def pack_bits_device(values: jax.Array, nbits: jax.Array,
 
     Pure uint32: a field at bit offset o spans words o>>5 and (o>>5)+1,
     whose halves are (v << s) in u32 and v >> (32-s) — the latter written
-    as two shifts so s = 0 stays defined.  No u64 anywhere (TPU has no
-    native 64-bit lanes; u64 would also force x64 tracing mode).
+    as two shifts so s = 0 stays defined.  No u64 anywhere (u64 would
+    force x64 tracing mode and double every lane op's width).
     """
     nbits32 = nbits.astype(jnp.uint32)
     v = values.astype(jnp.uint32) & ((jnp.uint32(1) << nbits32) - jnp.uint32(1))

@@ -1,6 +1,6 @@
-"""Device batch encoder: greedy parse -> predefined-FSE frame composition.
+"""Device batch encoder: greedy parse -> FSE/Huffman frame composition.
 
-The TPU-first reformulation of the reference's encode hot loops
+The data-parallel reformulation of the reference's encode hot loops
 (ZSTD_encodeSequences_body role, ZstdCompressSequences.cs:585; literals
 run raw in v1, displacing HufCompress.cs:1056 with a ratio trade).  The
 backward 3-state interleaved FSE encode is inherently sequential per
@@ -19,9 +19,9 @@ stream in the reference; here it becomes data-parallel:
    the prefix-scan packer ``pack_bits_device`` (ops/common.py).
 
 Frames produced are fully standard single-segment zstd frames (9-byte
-header, one compressed or raw block, predefined sequence tables, raw
-literals) — decodable by libzstd and by this repo's own host and device
-decoders.  Offsets are always emitted literal-form (off_base = off + 3);
+header, one compressed or raw block; fresh, RLE or predefined sequence
+tables; Huffman or raw literals) — decodable by libzstd and by this
+repo's own host and device decoders.  Offsets are always emitted literal-form (off_base = off + 3);
 repcode detection is a ratio refinement, not a validity requirement.
 """
 
@@ -353,7 +353,7 @@ def _encode_lane(block, n_valid, parse, W, t, lit_sorted, lit_count,
     lh3 = (lh >> (8 * jnp.arange(3, dtype=jnp.uint32))) & 0xFF
     # compressed-literal header (type 2, size_format 3: 18+18-bit sizes);
     # the 40-bit field  2 | 3<<2 | L<<4 | comp_lit<<22  emitted bytewise
-    # in u32 (no u64 on TPU)
+    # in u32 (the encode plane is 32-bit throughout)
     Lu = L.astype(jnp.uint32)
     cu = comp_lit.astype(jnp.uint32)
     hh5 = jnp.stack([
@@ -445,7 +445,7 @@ def _parse_phase(blocks, n_valid, S: int, hash_log: int):
     lit_sorted, lit_count, lit_hist = jax.vmap(lane)(
         blocks, nv, parsed["mls"], parsed["covered"], parsed["nseq"])
 
-    # sequence-code histograms (compare-reduce: TPU-fast, no scatters)
+    # sequence-code histograms (compare-reduce, no scatters)
     t = _tables()
 
     def code_hists(starts, mls_l, offs_l, ns):
@@ -605,9 +605,9 @@ def encode_frames_device(blocks, n_valid, S: int, W: int,
     fresh per-lane FSE sequence tables at the default logs), then phase B
     (FSE state chains, Huffman + FSE bit packing, frame assembly)."""
     t = _tables()
-    # The whole encode plane is 32-bit (Mosaic/TPU have no 64-bit lanes);
-    # trace with x64 off so Python ints stay int32 and nothing pays XLA's
-    # u64-emulation tax (the decode kernels do the same).
+    # The whole encode plane is 32-bit: trace with x64 off so Python ints
+    # stay int32 and no op widens to 64 bits (the decode kernels do the
+    # same).
     with jax.enable_x64(False):
         parsed, lit_sorted, lit_count, lit_hist, code_hists = _parse_phase(
             blocks, n_valid, S, hash_log)

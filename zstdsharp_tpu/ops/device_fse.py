@@ -1,17 +1,17 @@
-"""Batched FSE sequence decode on TPU (Pallas).
+"""Batched FSE sequence decode on the GPU (Pallas, Triton route).
 
-Device plane for the sequence section (ZSTD_decodeSequence:2360 role): many
-independent zstd sequence bitstreams decode in lockstep, one block per
-(sublane, lane) slot.  Each step emits one (litLen, matchLen, offset)
-triple per lane and runs the three interleaved FSE state machines plus the
-repcode history.
+Device plane for the sequence section (ZSTD_decodeSequence:2360 role):
+every device-planned block's sequence bitstream decodes in one kernel
+launch, one thread per block.  Each step emits one (litLen, matchLen,
+offset) triple per lane and runs the three interleaved FSE state machines
+plus the repcode history; a program owns LANES_PER_PROGRAM lanes and runs
+the whole sequence loop, so nothing carries between programs.
 
 Per-lane state tables are packed to ONE u32 per entry
-(sym | next_state << 8 | state_bits << 20); the value bases and extra-bit
-counts are recovered from the shared LL_BASE/ML_BASE/OF tables (identical
-across lanes), so the expensive per-lane select moves only 1 word per
-lookup.  Table lookups and bit-field reads use the same one-hot select
-machinery as ops/device_huf.py.
+(code | next_state << 8 | state_bits << 20); the value bases and extra-bit
+counts come from the shared LL/ML tables by code, and the offset base is
+arithmetic.  Every table lookup is one direct per-lane load; every bit
+field is two direct loads from the lane's row of stream words.
 
 Constraints for the device tier (callers fall back to the host engine):
  - table logs <= 9 (the format maximum for LL/ML; OF <= 8 in practice)
@@ -19,503 +19,20 @@ Constraints for the device tier (callers fall back to the host engine):
  - sequence bitstream <= MAX_W words
 """
 
-from dataclasses import dataclass
+from __future__ import annotations
 
 import numpy as np
 
-SUB, LN = 8, 128
-LANES = SUB * LN
+from .pallas_gpu import next_pow2, pad_lanes, resolve_interpret, triton_call
+
 NSTATES = 512          # max LL/ML table size (tlog 9)
 NSTATES_OF = 256       # max OF table size (tlog 8)
-SMALL_W = 32           # bit window in words (8-word aligned)
-REFILL_EVERY = 4       # sequences per refill round (4 * ~90 bits < 24 words)
-MAX_W = 2048           # 8KB per sequence stream (VMEM residency cap)
-ROUNDS_PER_STEP = 16   # rounds per grid step
-CHUNK = REFILL_EVERY * ROUNDS_PER_STEP
-
-# shared value tables (ZstdDecompressInternal.cs LL_base:9 / ML_base:121 /
-# OF: base = computed; bits tables from ZstdInternal.cs)
-LL_BASE = np.array(
-    [0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 18, 20, 22,
-     24, 28, 32, 40, 48, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384,
-     32768, 65536], np.int64)
-LL_BITS = np.array(
-    [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 3, 3,
-     4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16], np.int64)
-ML_BASE = np.array(
-    [3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22,
-     23, 24, 25, 26, 27, 28, 29, 30, 31, 32, 33, 34, 35, 37, 39, 41, 43, 47,
-     51, 59, 67, 83, 99, 131, 259, 515, 1027, 2051, 4099, 8195, 16387, 32771,
-     65539], np.int64)
-ML_BITS = np.array(
-    [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-     0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 3, 3, 4, 4, 5, 7, 8, 9, 10,
-     11, 12, 13, 14, 15, 16], np.int64)
-
-
-def _jax():
-    import jax
-    import jax.numpy as jnp
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    return jax, jnp, pl, pltpu
-
-
-def _target_is_tpu() -> bool:
-    """True when dispatches will land on a TPU: honors jax.default_device
-    overrides (a CPU mesh on a TPU-registered process must interpret)."""
-    import jax
-
-    d = jax.config.jax_default_device
-    if d is not None:
-        return d.platform == "tpu"
-    return jax.default_backend() == "tpu"
-
-
-@dataclass
-class FseSeqBatch:
-    words: np.ndarray      # [W, SUB, LN] int32 stream words
-    ll_tab: np.ndarray     # [NSTATES, SUB, LN] packed entries
-    of_tab: np.ndarray
-    ml_tab: np.ndarray
-    ll_log: np.ndarray     # [SUB, LN] table logs per lane
-    of_log: np.ndarray
-    ml_log: np.ndarray
-    pos: np.ndarray        # [1, SUB, LN] initial bit positions
-    rep: np.ndarray        # [3, SUB, LN] initial repcodes
-    n_seq: np.ndarray      # [SUB, LN]
-    t_max: int
-
-
-def pack_table(dt) -> np.ndarray:
-    """Pack an FseDTable (base_value/nb_add_bits/next_state/nb_bits arrays
-    indexed by state) into sym|ns<<8|sb<<20 u32 entries.
-
-    The device recovers (value base, extra bits) from the shared tables by
-    symbol, so `sym` here is the CODE (llCode/mlCode/ofCode)."""
-    size = 1 << dt.table_log
-    out = np.zeros(NSTATES, np.int64)
-    sym = dt.symbol.astype(np.int64)
-    ns = dt.new_state.astype(np.int64)
-    sb = dt.nb_bits.astype(np.int64)
-    out[:size] = sym | (ns << 8) | (sb << 20)
-    return out
-
-
-def prepare_batch(payloads, tables, n_seqs, reps) -> FseSeqBatch:
-    """tables[i] = (ll_dt, of_dt, ml_dt) FseDTable triple for lane i, each
-    exposing .symbol/.new_state/.nb_bits/.table_log (the decode tables from
-    decode/block.py, with symbol = code)."""
-    n = len(payloads)
-    assert 0 < n <= LANES
-    wmax = max(max((len(p) + 3) // 4 for p in payloads), 2)
-    if wmax > MAX_W:
-        raise ValueError(f"sequence stream too long for device tier: {wmax}")
-    words = np.zeros((wmax, LANES), dtype=np.uint32)
-    pos = np.zeros(LANES, dtype=np.int32)
-    for i, p in enumerate(payloads):
-        if not p:
-            continue
-        b = np.frombuffer(p, dtype=np.uint8)
-        pad = (-len(b)) % 4
-        if pad:
-            b = np.concatenate([b, np.zeros(pad, np.uint8)])
-        words[: len(b) // 4, i] = b.view("<u4")
-        last = p[-1]
-        if last == 0:
-            raise ValueError("corrupt stream: zero last byte")
-        pos[i] = (len(p) - 1) * 8 + int(last).bit_length() - 1
-
-    ll_tab = np.zeros((NSTATES, LANES), np.int32)
-    of_tab = np.zeros((NSTATES_OF, LANES), np.int32)
-    ml_tab = np.zeros((NSTATES, LANES), np.int32)
-    ll_log = np.zeros(LANES, np.int32)
-    of_log = np.zeros(LANES, np.int32)
-    ml_log = np.zeros(LANES, np.int32)
-    rep = np.zeros((3, LANES), np.int32)
-    for i in range(n):
-        ll_dt, of_dt, ml_dt = tables[i]
-        if of_dt.table_log > 8:
-            raise ValueError("OF table log > 8 unsupported on device tier")
-        ll_tab[:, i] = pack_table(ll_dt)
-        of_tab[:, i] = pack_table(of_dt)[:NSTATES_OF]
-        ml_tab[:, i] = pack_table(ml_dt)
-        ll_log[i] = ll_dt.table_log
-        of_log[i] = of_dt.table_log
-        ml_log[i] = ml_dt.table_log
-        rep[:, i] = reps[i]
-    nseq = np.zeros(LANES, np.int32)
-    nseq[:n] = n_seqs
-    return FseSeqBatch(
-        words.view(np.int32).reshape(wmax, SUB, LN),
-        ll_tab.reshape(NSTATES, SUB, LN),
-        of_tab.reshape(NSTATES_OF, SUB, LN),
-        ml_tab.reshape(NSTATES, SUB, LN), ll_log.reshape(SUB, LN),
-        of_log.reshape(SUB, LN), ml_log.reshape(SUB, LN),
-        pos.reshape(1, SUB, LN), rep.reshape(3, SUB, LN),
-        nseq.reshape(SUB, LN), int(max(n_seqs)) if n_seqs else 0)
-
-
-def initial_states(batch: FseSeqBatch):
-    """Host-side read of the three initial FSE states (vectorized); returns
-    the [7, SUB, LN] int32 device state vector
-    [pos, r0, r1, r2, st_ll, st_of, st_ml] after the state preamble."""
-    W = batch.words.shape[0]
-    words = batch.words.reshape(W, LANES).astype(np.uint32).astype(np.int64)
-    lane = np.arange(LANES)
-    pos = batch.pos.reshape(LANES).astype(np.int64).copy()
-
-    def read(nb):
-        nonlocal pos
-        p0 = pos - nb
-        k = p0 >> 5
-        sh = p0 & 31
-        w0 = np.where((k >= 0) & (k < W), words[np.clip(k, 0, W - 1), lane], 0)
-        w1 = np.where((k + 1 >= 0) & (k + 1 < W),
-                      words[np.clip(k + 1, 0, W - 1), lane], 0)
-        v = np.where(sh == 0, w0,
-                     (w0 >> sh) | ((w1 << (32 - sh)) & 0xFFFFFFFF))
-        v = v & ((np.int64(1) << nb) - 1)
-        pos = p0
-        return v
-
-    st_ll = read(batch.ll_log.reshape(LANES).astype(np.int64))
-    st_of = read(batch.of_log.reshape(LANES).astype(np.int64))
-    st_ml = read(batch.ml_log.reshape(LANES).astype(np.int64))
-    rep = batch.rep.reshape(3, LANES).astype(np.int64)
-    state = np.stack([pos, rep[0], rep[1], rep[2], st_ll, st_of, st_ml])
-    return state.astype(np.int32).reshape(7, SUB, LN)
-
-
-# ---------------------------------------------------------------------------
-# numpy mirror (bit-exact with the kernel; used by CPU tests)
-# ---------------------------------------------------------------------------
-
-
-def decode_reference(batch: FseSeqBatch):
-    """Bit-exact numpy mirror of the kernel algorithm.
-
-    Repcode resolution is collapsed into one rule: compute the new r0 by
-    case (push/dec/rotate/swap/keep); the emitted offset is always the new
-    r0 (equivalent to ZSTD_decodeSequence:2360's branches).
-    """
-    W = batch.words.shape[0]
-    words = batch.words.reshape(W, LANES).astype(np.uint32).astype(np.int64)
-    lane = np.arange(LANES)
-    pos = batch.pos.reshape(LANES).astype(np.int64).copy()
-    rep = batch.rep.reshape(3, LANES).astype(np.int64)
-    r0, r1, r2 = rep[0].copy(), rep[1].copy(), rep[2].copy()
-    ll_tab = batch.ll_tab.reshape(NSTATES, LANES).astype(np.int64)
-    of_tab = batch.of_tab.reshape(NSTATES_OF, LANES).astype(np.int64)
-    ml_tab = batch.ml_tab.reshape(NSTATES, LANES).astype(np.int64)
-    ll_log = batch.ll_log.reshape(LANES).astype(np.int64)
-    of_log = batch.of_log.reshape(LANES).astype(np.int64)
-    ml_log = batch.ml_log.reshape(LANES).astype(np.int64)
-
-    def read(nb):
-        nonlocal pos
-        p0 = pos - nb
-        k = p0 >> 5
-        sh = p0 & 31
-        w0 = np.where((k >= 0) & (k < W), words[np.clip(k, 0, W - 1), lane], 0)
-        w1 = np.where((k + 1 >= 0) & (k + 1 < W),
-                      words[np.clip(k + 1, 0, W - 1), lane], 0)
-        v = np.where(sh == 0, w0,
-                     (w0 >> sh) | ((w1 << (32 - sh)) & 0xFFFFFFFF))
-        v = v & ((np.int64(1) << nb) - 1)
-        pos = p0
-        return v
-
-    T = batch.t_max
-    lls = np.zeros((T, LANES), np.int64)
-    mls = np.zeros((T, LANES), np.int64)
-    ofs = np.zeros((T, LANES), np.int64)
-
-    st_ll = read(ll_log)
-    st_of = read(of_log)
-    st_ml = read(ml_log)
-    from .. import constants as C
-
-    llb = np.asarray(C.LL_BASE, np.int64)
-    llx = np.asarray(C.LL_BITS, np.int64)
-    mlb = np.asarray(C.ML_BASE, np.int64)
-    mlx = np.asarray(C.ML_BITS, np.int64)
-    ofb = np.asarray(C.OF_BASE, np.int64)
-    for t in range(T):
-        e_ll = ll_tab[np.clip(st_ll, 0, NSTATES - 1), lane]
-        e_of = of_tab[np.clip(st_of, 0, NSTATES_OF - 1), lane]
-        e_ml = ml_tab[np.clip(st_ml, 0, NSTATES - 1), lane]
-        llc = np.clip(e_ll & 255, 0, 35)
-        ofc = np.clip(e_of & 255, 0, 31)
-        mlc = np.clip(e_ml & 255, 0, 52)
-        ll_base, ll_bits = llb[llc], llx[llc]
-        ml_base, ml_bits = mlb[mlc], mlx[mlc]
-        of_base = ofb[np.clip(ofc, 0, len(ofb) - 1)]
-        of_bits = ofc
-        ofv = read(of_bits)
-        big = of_bits > 1
-        offset_big = of_base + ofv
-        ll0 = (ll_base == 0).astype(np.int64)
-        idx = 1 + ll0 + ofv           # meaningful when of_bits == 1
-        caseA = (~big) & (of_bits == 0) & (ll0 == 0)
-        swap = (~big) & (((of_bits == 0) & (ll0 == 1))
-                         | ((of_bits == 1) & (idx == 1)))
-        rot = (~big) & (of_bits == 1) & (idx == 2)
-        dec = (~big) & (of_bits == 1) & (idx == 3)
-        r0n = np.select([big, dec, rot, swap],
-                        [offset_big, np.maximum(r0 - 1, 1), r2, r1], r0)
-        r1n = np.where(caseA, r1, r0)
-        r2n = np.where(caseA | swap, r2, r1)
-        r0, r1, r2 = r0n, r1n, r2n
-        offset = r0
-        mlv = ml_base + read(ml_bits)
-        llv = ll_base + read(ll_bits)
-        lls[t] = llv
-        mls[t] = mlv
-        ofs[t] = offset
-        st_ll = ((e_ll >> 8) & 4095) + read((e_ll >> 20) & 31)
-        st_ml = ((e_ml >> 8) & 4095) + read((e_ml >> 20) & 31)
-        st_of = ((e_of >> 8) & 4095) + read((e_of >> 20) & 31)
-    return lls, mls, ofs
-
-
-# ---------------------------------------------------------------------------
-# Pallas kernel
-# ---------------------------------------------------------------------------
-
-_KERNEL_CACHE = {}
+# Device envelope: sequence-stream words per lane (8KB); longer sections
+# host-decode (widening it is ROADMAP R2).
+MAX_W = 2048
 _T_BUCKETS = (256, 1024, 4096, 16384, 32768)
 _W_BUCKETS = (64, 256, 512, 768, 1024, 1536, 2048)
-
-
-def _decode_fn(T, W, interpret=False, sub=SUB):
-    jax, jnp, pl, pltpu = _jax()
-    SUB = sub  # shadow the module default: lane count is sub * 128
-    key = (T, W, interpret, sub)
-    if key in _KERNEL_CACHE:
-        return _KERNEL_CACHE[key]
-
-    nblk = W // 8
-    nchunks = T // CHUNK
-    NW = SMALL_W  # window words
-
-    def kernel(words_ref, ll_ref, of_ref, ml_ref, llb_ref, llx_ref,
-               st_ref, ll_out, ml_out, of_out, st_scr):
-        r = pl.program_id(0)
-
-        @pl.when(r == 0)
-        def _():
-            st_scr[:] = st_ref[:]
-
-        llp = llb_ref[:]      # [64, 1, LN] shared base|bits<<20 per code
-        mlp = llx_ref[:]
-
-        st_iota = jax.lax.broadcasted_iota(jnp.int32, (NSTATES, SUB, LN), 0)
-        st_iota_of = jax.lax.broadcasted_iota(jnp.int32,
-                                              (NSTATES_OF, SUB, LN), 0)
-        sh_iota = jax.lax.broadcasted_iota(jnp.int32, (64, SUB, LN), 0)
-        sw_iota = jax.lax.broadcasted_iota(jnp.int32, (NW, SUB, LN), 0)
-
-        def lookup_tab(tab_ref, st, iota=None):
-            oh = ((st_iota if iota is None else iota)
-                  == st[None]).astype(jnp.int32)
-            return jnp.sum(tab_ref[:] * oh, axis=0)
-
-        def lookup_shared(tab, code):
-            oh = (sh_iota == code[None]).astype(jnp.int32)
-            return jnp.sum(tab * oh, axis=0)
-
-        def one_round(rnd, carry):
-            pos, r0, r1, r2, s_ll, s_of, s_ml = carry
-            # refill window [8a, 8a+NW)
-            low = (pos - (REFILL_EVERY * 96 + 32)) >> 5
-            a = jnp.minimum(jnp.maximum(low >> 3, 0),
-                            max(nblk - NW // 8, 0))
-            base_w = (a * 8).astype(jnp.int32)
-            done = pos <= 0
-            blk_lo = jnp.min(jnp.where(done, nblk, a)).astype(jnp.int32)
-            blk_hi = jnp.minimum(
-                jnp.max(jnp.where(done, 0, a)) + NW // 8,
-                nblk).astype(jnp.int32)
-            blk_lo = jnp.minimum(blk_lo, blk_hi)
-
-            def rbody(blk, chunks):
-                wblk = words_ref[pl.ds(blk * 8, 8)]
-                return tuple(
-                    jnp.where((base_w == (blk - q) * 8)[None], wblk, chunks[q])
-                    for q in range(NW // 8))
-
-            chunks = jax.lax.fori_loop(
-                blk_lo, blk_hi, rbody,
-                tuple(jnp.zeros((8, SUB, LN), jnp.int32)
-                      for _ in range(NW // 8)))
-            win = jnp.concatenate(chunks, axis=0)
-
-            def read(pos, nb):
-                p0 = pos - nb
-                k = p0 >> 5
-                sh = (p0 & 31).astype(jnp.int32)
-                kl = k - base_w
-                oh0 = (sw_iota == kl[None]).astype(jnp.int32)
-                oh1 = (sw_iota == (kl + 1)[None]).astype(jnp.int32)
-                w0 = jnp.sum(win * oh0, axis=0)
-                w1 = jnp.sum(win * oh1, axis=0)
-                w0 = jnp.where(k < 0, 0, w0).astype(jnp.int32)
-                w1 = jnp.where(k + 1 < 0, 0, w1).astype(jnp.int32)
-                sh32 = ((32 - sh) & 31).astype(jnp.int32)
-                v = jnp.where(
-                    sh == 0, w0,
-                    jnp.bitwise_or(
-                        jax.lax.shift_right_logical(w0, sh),
-                        jax.lax.shift_left(w1, sh32)))
-                nb31 = jnp.minimum(nb, 31).astype(jnp.int32)
-                mask = jnp.where(
-                    nb >= 32, jnp.int32(-1),
-                    jax.lax.shift_left(jnp.int32(1), nb31) - 1)
-                return p0.astype(jnp.int32), v & mask
-
-            def step(t, carry):
-                pos, r0, r1, r2, s_ll, s_of, s_ml = carry
-                e_ll = lookup_tab(ll_ref, s_ll)
-                e_of = lookup_tab(of_ref, s_of, st_iota_of)
-                e_ml = lookup_tab(ml_ref, s_ml)
-                llc = e_ll & 255
-                ofc = e_of & 255
-                mlc = e_ml & 255
-                llpk = lookup_shared(llp, llc)
-                mlpk = lookup_shared(mlp, mlc)
-                ll_base = llpk & 0xFFFFF
-                ll_bits = llpk >> 20
-                ml_base = mlpk & 0xFFFFF
-                ml_bits = mlpk >> 20
-                # OF base is arithmetic: (1<<c)-3 for c>=2, else c
-                of_base = jnp.where(
-                    ofc > 1,
-                    jax.lax.shift_left(jnp.int32(1),
-                                       jnp.minimum(ofc, 30)) - 3,
-                    ofc)
-                pos, ofv = read(pos, ofc)
-                big = ofc > 1
-                offset_big = of_base + ofv
-                ll0 = (ll_base == 0).astype(jnp.int32)
-                idx = 1 + ll0 + ofv
-                caseA = jnp.logical_and(
-                    jnp.logical_not(big),
-                    jnp.logical_and(ofc == 0, ll0 == 0))
-                swap = jnp.logical_and(
-                    jnp.logical_not(big),
-                    jnp.logical_or(
-                        jnp.logical_and(ofc == 0, ll0 == 1),
-                        jnp.logical_and(ofc == 1, idx == 1)))
-                rot = jnp.logical_and(
-                    jnp.logical_not(big),
-                    jnp.logical_and(ofc == 1, idx == 2))
-                dec = jnp.logical_and(
-                    jnp.logical_not(big),
-                    jnp.logical_and(ofc == 1, idx == 3))
-                r0n = jnp.where(
-                    big, offset_big,
-                    jnp.where(dec, jnp.maximum(r0 - 1, 1),
-                              jnp.where(rot, r2,
-                                        jnp.where(swap, r1, r0))))
-                r1n = jnp.where(caseA, r1, r0)
-                r2n = jnp.where(jnp.logical_or(caseA, swap), r2, r1)
-                r0, r1, r2 = r0n, r1n, r2n
-                pos, mle = read(pos, ml_bits)
-                pos, lle = read(pos, ll_bits)
-                tt = (rnd * REFILL_EVERY + t).astype(jnp.int32)
-                ll_out[pl.ds(tt, 1)] = (ll_base + lle)[None]
-                ml_out[pl.ds(tt, 1)] = (ml_base + mle)[None]
-                of_out[pl.ds(tt, 1)] = r0[None]
-                pos, b_ll = read(pos, (e_ll >> 20) & 31)
-                s_ll = ((e_ll >> 8) & 4095) + b_ll
-                pos, b_ml = read(pos, (e_ml >> 20) & 31)
-                s_ml = ((e_ml >> 8) & 4095) + b_ml
-                pos, b_of = read(pos, (e_of >> 20) & 31)
-                s_of = ((e_of >> 8) & 4095) + b_of
-                return pos, r0, r1, r2, s_ll, s_of, s_ml
-
-            return jax.lax.fori_loop(0, REFILL_EVERY, step,
-                                     (pos, r0, r1, r2, s_ll, s_of, s_ml))
-
-        pos = st_scr[0]
-        done_all = jnp.all(pos <= 0)
-
-        @pl.when(jnp.logical_not(done_all))
-        def _():
-            carry = (st_scr[0], st_scr[1], st_scr[2], st_scr[3], st_scr[4],
-                     st_scr[5], st_scr[6])
-            out = jax.lax.fori_loop(0, ROUNDS_PER_STEP, one_round, carry)
-            for i in range(7):
-                st_scr[i] = out[i]
-
-        @pl.when(done_all)
-        def _():
-            z = jnp.zeros((CHUNK, SUB, LN), jnp.int32)
-            ll_out[:] = z
-            ml_out[:] = z
-            of_out[:] = z
-
-    def fn(words, ll_tab, of_tab, ml_tab, llp, mlp, st):
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=0,
-            grid=(nchunks,),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 7,
-            out_specs=(
-                pl.BlockSpec((CHUNK, SUB, LN), lambda r: (r, 0, 0)),
-                pl.BlockSpec((CHUNK, SUB, LN), lambda r: (r, 0, 0)),
-                pl.BlockSpec((CHUNK, SUB, LN), lambda r: (r, 0, 0)),
-            ),
-            scratch_shapes=[pltpu.VMEM((7, SUB, LN), jnp.int32)],
-        )
-        return pl.pallas_call(
-            kernel,
-            grid_spec=grid_spec,
-            out_shape=(jax.ShapeDtypeStruct((T, SUB, LN), jnp.int32),
-                       jax.ShapeDtypeStruct((T, SUB, LN), jnp.int32),
-                       jax.ShapeDtypeStruct((T, SUB, LN), jnp.int32)),
-            interpret=interpret,
-        )(words, ll_tab, of_tab, ml_tab, llp, mlp, st)
-
-    jfn = jax.jit(fn)
-    _KERNEL_CACHE[key] = jfn
-    return jfn
-
-
-def _shared_tables():
-    from .. import constants as C
-
-    def packed(base, bits):
-        out = np.zeros((64, 1, LN), np.int32)
-        v = (np.asarray(base, np.int64)
-             | (np.asarray(bits, np.int64) << 20))
-        out[: len(v)] = v[:, None, None]
-        return out
-
-    return (packed(C.LL_BASE, C.LL_BITS), packed(C.ML_BASE, C.ML_BITS))
-
-
-def fse_decode_device(batch: FseSeqBatch, interpret=False):
-    """Decode the sequence batch on the TPU; returns (ll, ml, of) device
-    arrays of shape [T, SUB, LN] int32."""
-    jax, jnp, pl, pltpu = _jax()
-    W = batch.words.shape[0]
-    if W > MAX_W:
-        raise ValueError(f"stream too long for device tier: {W}")
-    W_pad = next(b for b in _W_BUCKETS if b >= W)
-    words = np.zeros((W_pad, SUB, LN), np.int32)
-    words[:W] = batch.words
-    T = next(b for b in _T_BUCKETS if b >= max(batch.t_max, 1))
-    if not _target_is_tpu():
-        interpret = True
-    fn = _decode_fn(T, W_pad, interpret)
-    llp, mlp = _shared_tables()
-    st = initial_states(batch)
-    with jax.enable_x64(False):
-        return fn(jnp.asarray(words), jnp.asarray(batch.ll_tab),
-                  jnp.asarray(batch.of_tab), jnp.asarray(batch.ml_tab),
-                  jnp.asarray(llp), jnp.asarray(mlp), jnp.asarray(st))
+LANES_PER_PROGRAM = 16
 
 
 def bucket_w(w: int) -> int:
@@ -526,78 +43,313 @@ def bucket_t(t: int) -> int:
     return next(b for b in _T_BUCKETS if b >= max(t, 1))
 
 
-_LM_CACHE = {}
+def lane_bucket(n: int) -> int:
+    return next_pow2(n, LANES_PER_PROGRAM)
 
 
-def _lm_fn(NL, Wb, T, interpret):
-    """Jitted wrapper: lane-major operands -> kernel layout (device-side
-    transpose) -> pallas decode -> ([NL, T], [NL, T], [NL, T])."""
-    jax, jnp, pl, pltpu = _jax()
-    key = (NL, Wb, T, interpret)
-    got = _LM_CACHE.get(key)
+def shared_tables() -> np.ndarray:
+    """[2, 64] int32: LL then ML (base | extra_bits << 20) by code."""
+    from .. import constants as C
+
+    out = np.zeros((2, 64), np.int32)
+    for row, (base, bits) in enumerate(((C.LL_BASE, C.LL_BITS),
+                                        (C.ML_BASE, C.ML_BITS))):
+        v = np.asarray(base, np.int64) | (np.asarray(bits, np.int64) << 20)
+        out[row, : len(v)] = v
+    return out
+
+
+def _of_base(ofc):
+    """Offset value base by code: (1 << c) - 3 for c >= 2, else c."""
+    return np.where(ofc > 1, (np.int64(1) << np.minimum(ofc, 30)) - 3, ofc)
+
+
+# ---------------------------------------------------------------------------
+# Host-side preparation (Python mirror of the native planner's packing)
+# ---------------------------------------------------------------------------
+
+
+def pack_table(dt) -> np.ndarray:
+    """Pack an FseDTable (symbol/new_state/nb_bits arrays indexed by state)
+    into code|ns<<8|sb<<20 u32 entries.
+
+    The device recovers (value base, extra bits) from the shared tables by
+    symbol, so `symbol` here is the CODE (llCode/mlCode/ofCode)."""
+    size = 1 << dt.table_log
+    out = np.zeros(NSTATES, np.int64)
+    sym = dt.symbol.astype(np.int64)
+    ns = dt.new_state.astype(np.int64)
+    sb = dt.nb_bits.astype(np.int64)
+    out[:size] = sym | (ns << 8) | (sb << 20)
+    return out
+
+
+class _BitReader:
+    """Backward bit reads over lane-major stream words (all lanes at once),
+    the same semantics as the kernel's `read`."""
+
+    def __init__(self, words, pos):
+        self.words = words.astype(np.int64) & 0xFFFFFFFF
+        self.lane = np.arange(words.shape[0])
+        self.pos = pos.astype(np.int64).copy()
+
+    def _word(self, k):
+        W = self.words.shape[1]
+        return np.where((k >= 0) & (k < W),
+                        self.words[self.lane, np.clip(k, 0, W - 1)], 0)
+
+    def read(self, nb):
+        p0 = self.pos - nb
+        k = p0 >> 5
+        sh = p0 & 31
+        w0, w1 = self._word(k), self._word(k + 1)
+        v = np.where(sh == 0, w0,
+                     (w0 >> sh) | ((w1 << (32 - sh)) & 0xFFFFFFFF))
+        self.pos = p0
+        return v & ((np.int64(1) << nb) - 1)
+
+
+def prepare_batch(payloads, tables, n_seqs, reps) -> dict:
+    """Lane-major operands for len(payloads) blocks (the layout the native
+    planner fills; see decode_lanemajor).  tables[i] = (ll_dt, of_dt, ml_dt)
+    exposing .symbol/.new_state/.nb_bits/.table_log with symbol = code."""
+    n = len(payloads)
+    assert n > 0
+    wmax = max((len(p) + 3) // 4 for p in payloads)
+    if wmax > MAX_W:
+        raise ValueError(f"sequence stream too long for device tier: {wmax}")
+    words = np.zeros((n, bucket_w(wmax)), dtype=np.uint32)
+    pos = np.zeros(n, dtype=np.int64)
+    for i, p in enumerate(payloads):
+        if not p:
+            continue
+        b = np.frombuffer(p, dtype=np.uint8)
+        pad = (-len(b)) % 4
+        if pad:
+            b = np.concatenate([b, np.zeros(pad, np.uint8)])
+        words[i, : len(b) // 4] = b.view("<u4")
+        last = p[-1]
+        if last == 0:
+            raise ValueError("corrupt stream: zero last byte")
+        pos[i] = (len(p) - 1) * 8 + int(last).bit_length() - 1
+
+    ll = np.zeros((n, NSTATES), np.int32)
+    of = np.zeros((n, NSTATES_OF), np.int32)
+    ml = np.zeros((n, NSTATES), np.int32)
+    logs = np.zeros((3, n), np.int64)
+    for i in range(n):
+        ll_dt, of_dt, ml_dt = tables[i]
+        if of_dt.table_log > 8:
+            raise ValueError("OF table log > 8 unsupported on device tier")
+        ll[i] = pack_table(ll_dt)
+        of[i] = pack_table(of_dt)[:NSTATES_OF]
+        ml[i] = pack_table(ml_dt)
+        logs[:, i] = (ll_dt.table_log, of_dt.table_log, ml_dt.table_log)
+    # initial states, LL/OF/ML order (native dplane_fse_states)
+    words = words.view(np.int32)
+    br = _BitReader(words, pos)
+    states = [br.read(logs[j]) for j in range(3)]
+    st = np.zeros((n, 8), np.int32)
+    st[:, 0] = br.pos
+    st[:, 1:4] = np.asarray(reps, np.int64).reshape(n, 3)
+    st[:, 4:7] = np.stack(states, axis=1)
+    nseq = np.asarray(n_seqs, np.int32).reshape(n)
+    return dict(words=words, ll=ll, of=of, ml=ml, st=st, n_seq=nseq,
+                t_max=int(nseq.max()))
+
+
+# ---------------------------------------------------------------------------
+# numpy mirror (bit-exact with the kernel)
+# ---------------------------------------------------------------------------
+
+
+def decode_reference(ops: dict):
+    """Bit-exact numpy mirror of the kernel: (ll, ml, of) int32 arrays of
+    shape [NL, bucket_t(t_max)], zero past each lane's sequence count.
+
+    Repcode resolution is collapsed into one rule: compute the new r0 by
+    case (push/dec/rotate/swap/keep); the emitted offset is always the new
+    r0 (equivalent to ZSTD_decodeSequence:2360's branches)."""
+    st = ops["st"].astype(np.int64)
+    NL = st.shape[0]
+    lane = np.arange(NL)
+    br = _BitReader(ops["words"], st[:, 0])
+    r0, r1, r2 = st[:, 1].copy(), st[:, 2].copy(), st[:, 3].copy()
+    s_ll, s_of, s_ml = st[:, 4].copy(), st[:, 5].copy(), st[:, 6].copy()
+    ll_tab = ops["ll"].astype(np.int64)
+    of_tab = ops["of"].astype(np.int64)
+    ml_tab = ops["ml"].astype(np.int64)
+    llp, mlp = shared_tables().astype(np.int64)
+    nseq = ops["n_seq"].astype(np.int64)
+    T = bucket_t(ops["t_max"])
+    lls = np.zeros((NL, T), np.int32)
+    mls = np.zeros((NL, T), np.int32)
+    ofs = np.zeros((NL, T), np.int32)
+    for t in range(int(nseq.max(initial=0))):
+        e_ll = ll_tab[lane, np.clip(s_ll, 0, NSTATES - 1)]
+        e_of = of_tab[lane, np.clip(s_of, 0, NSTATES_OF - 1)]
+        e_ml = ml_tab[lane, np.clip(s_ml, 0, NSTATES - 1)]
+        llpk = llp[np.clip(e_ll & 255, 0, 63)]
+        mlpk = mlp[np.clip(e_ml & 255, 0, 63)]
+        ll_base, ll_bits = llpk & 0xFFFFF, llpk >> 20
+        ml_base, ml_bits = mlpk & 0xFFFFF, mlpk >> 20
+        ofc = np.clip(e_of & 255, 0, 31)
+        ofv = br.read(ofc)
+        big = ofc > 1
+        ll0 = (ll_base == 0).astype(np.int64)
+        idx = 1 + ll0 + ofv           # meaningful when ofc == 1
+        caseA = (~big) & (ofc == 0) & (ll0 == 0)
+        swap = (~big) & (((ofc == 0) & (ll0 == 1))
+                         | ((ofc == 1) & (idx == 1)))
+        rot = (~big) & (ofc == 1) & (idx == 2)
+        dec = (~big) & (ofc == 1) & (idx == 3)
+        r0n = np.select([big, dec, rot, swap],
+                        [_of_base(ofc) + ofv, np.maximum(r0 - 1, 1), r2, r1],
+                        r0)
+        r1n = np.where(caseA, r1, r0)
+        r2n = np.where(caseA | swap, r2, r1)
+        r0, r1, r2 = r0n, r1n, r2n
+        live = t < nseq
+        mls[:, t] = np.where(live, ml_base + br.read(ml_bits), 0)
+        lls[:, t] = np.where(live, ll_base + br.read(ll_bits), 0)
+        ofs[:, t] = np.where(live, r0, 0)
+        s_ll = ((e_ll >> 8) & 4095) + br.read((e_ll >> 20) & 31)
+        s_ml = ((e_ml >> 8) & 4095) + br.read((e_ml >> 20) & 31)
+        s_of = ((e_of >> 8) & 4095) + br.read((e_of >> 20) & 31)
+    return lls, mls, ofs
+
+
+# ---------------------------------------------------------------------------
+# Triton kernel
+# ---------------------------------------------------------------------------
+
+
+def _kernel(words_ref, ll_ref, of_ref, ml_ref, shared_ref, st_ref, nseq_ref,
+            ll_out, ml_out, of_out, *, W, T, BL):
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+
+    base = pl.program_id(0) * BL
+    blk = pl.ds(base, BL)
+    lanes = base + jnp.arange(BL, dtype=jnp.int32)
+    nseq = nseq_ref[blk]
+    zero_l = jnp.zeros((BL,), jnp.int32)
+
+    def word(k):
+        w = words_ref[lanes, jnp.clip(k, 0, W - 1)]
+        return jnp.where((k >= 0) & (k < W), w, 0)
+
+    def read(pos, nb):
+        p0 = pos - nb
+        k = p0 >> 5
+        sh = p0 & 31
+        w0, w1 = word(k), word(k + 1)
+        v = jnp.where(sh == 0, w0,
+                      jax.lax.shift_right_logical(w0, sh)
+                      | jax.lax.shift_left(w1, (32 - sh) & 31))
+        mask = jnp.where(nb >= 32, -1,
+                         jax.lax.shift_left(1, jnp.minimum(nb, 31)) - 1)
+        return p0, v & mask
+
+    def step(t, carry):
+        pos, r0, r1, r2, s_ll, s_of, s_ml = carry
+        e_ll = ll_ref[lanes, jnp.clip(s_ll, 0, NSTATES - 1)]
+        e_of = of_ref[lanes, jnp.clip(s_of, 0, NSTATES_OF - 1)]
+        e_ml = ml_ref[lanes, jnp.clip(s_ml, 0, NSTATES - 1)]
+        llpk = shared_ref[zero_l, jnp.clip(e_ll & 255, 0, 63)]
+        mlpk = shared_ref[zero_l + 1, jnp.clip(e_ml & 255, 0, 63)]
+        ll_base, ll_bits = llpk & 0xFFFFF, llpk >> 20
+        ml_base, ml_bits = mlpk & 0xFFFFF, mlpk >> 20
+        ofc = jnp.clip(e_of & 255, 0, 31)
+        of_base = jnp.where(
+            ofc > 1, jax.lax.shift_left(1, jnp.minimum(ofc, 30)) - 3, ofc)
+        pos, ofv = read(pos, ofc)
+        big = ofc > 1
+        ll0 = (ll_base == 0).astype(jnp.int32)
+        idx = 1 + ll0 + ofv
+        small = jnp.logical_not(big)
+        caseA = small & (ofc == 0) & (ll0 == 0)
+        swap = small & (((ofc == 0) & (ll0 == 1)) | ((ofc == 1) & (idx == 1)))
+        rot = small & (ofc == 1) & (idx == 2)
+        dec = small & (ofc == 1) & (idx == 3)
+        r0n = jnp.where(big, of_base + ofv,
+                        jnp.where(dec, jnp.maximum(r0 - 1, 1),
+                                  jnp.where(rot, r2,
+                                            jnp.where(swap, r1, r0))))
+        r1n = jnp.where(caseA, r1, r0)
+        r2n = jnp.where(caseA | swap, r2, r1)
+        r0, r1, r2 = r0n, r1n, r2n
+        live = t < nseq
+        pos, mle = read(pos, ml_bits)
+        pos, lle = read(pos, ll_bits)
+        ll_out[t, blk] = jnp.where(live, ll_base + lle, 0)
+        ml_out[t, blk] = jnp.where(live, ml_base + mle, 0)
+        of_out[t, blk] = jnp.where(live, r0, 0)
+        pos, b_ll = read(pos, (e_ll >> 20) & 31)
+        pos, b_ml = read(pos, (e_ml >> 20) & 31)
+        pos, b_of = read(pos, (e_of >> 20) & 31)
+        return (pos, r0, r1, r2, ((e_ll >> 8) & 4095) + b_ll,
+                ((e_of >> 8) & 4095) + b_of, ((e_ml >> 8) & 4095) + b_ml)
+
+    carry = tuple(st_ref[blk, j] for j in range(7))
+    n_hi = jnp.max(nseq)
+    jax.lax.fori_loop(0, n_hi, step, carry)
+
+    def clear(t, c):
+        for ref in (ll_out, ml_out, of_out):
+            ref[t, blk] = zero_l
+        return c
+
+    jax.lax.fori_loop(n_hi, T, clear, 0)
+
+
+_FN_CACHE: dict = {}
+
+
+def _decode_fn(NL: int, W: int, T: int, interpret: bool):
+    """Jitted: lane-major operands for NL lanes -> 3 x [NL, T] int32."""
+    key = (NL, W, T, interpret)
+    got = _FN_CACHE.get(key)
     if got is not None:
         return got
-    sub = NL // LN
-    fn_p = _decode_fn(T, Wb, interpret, sub=sub)
-    llp_np, mlp_np = _shared_tables()
+    import functools
 
-    def wrap(words, ll, of, ml, st):
-        w = words.T.reshape(Wb, sub, LN)
-        llt = ll.T.reshape(NSTATES, sub, LN)
-        oft = of.T.reshape(NSTATES_OF, sub, LN)
-        mlt = ml.T.reshape(NSTATES, sub, LN)
-        stt = st[:, :7].T.reshape(7, sub, LN)
-        lls, mls, ofs = fn_p(w, llt, oft, mlt, jnp.asarray(llp_np),
-                             jnp.asarray(mlp_np), stt)
-        return (lls.reshape(T, NL).T, mls.reshape(T, NL).T,
-                ofs.reshape(T, NL).T)
+    import jax
+    import jax.numpy as jnp
 
-    jfn = jax.jit(wrap)
-    _LM_CACHE[key] = jfn
-    return jfn
+    BL = LANES_PER_PROGRAM
+    out = jax.ShapeDtypeStruct((T, NL), jnp.int32)
+    call = triton_call(
+        functools.partial(_kernel, W=W, T=T, BL=BL), grid=(NL // BL,),
+        out_shape=(out, out, out), interpret=interpret, name="fse_decode")
+    shared = shared_tables()
 
+    def wrap(words, ll, of, ml, st, nseq):
+        res = call(words, ll, of, ml, jnp.asarray(shared), st, nseq)
+        return tuple(r.T for r in res)
 
-def decode_lanemajor(ops: dict, interpret=False):
-    """Decode from lane-major operands (see _NativeOps.fse_ops).  ops:
-    words [NL, Wb] i32, ll [NL, 512], of [NL, 256], ml [NL, 512],
-    st [NL, 8] (resolved initial kernel state from the native planner),
-    t_max.  Returns ([NL, T], [NL, T], [NL, T]) int32 device rows."""
-    jax, jnp, pl, pltpu = _jax()
-    words = ops["words"]
-    NL, Wb = words.shape
-    T = bucket_t(ops["t_max"])
-    if not _target_is_tpu():
-        interpret = True
-    fn = _lm_fn(NL, Wb, T, interpret)
-    c = np.ascontiguousarray
-    with jax.enable_x64(False):
-        return fn(jnp.asarray(c(words)), jnp.asarray(c(ops["ll"])),
-                  jnp.asarray(c(ops["of"])), jnp.asarray(c(ops["ml"])),
-                  jnp.asarray(c(ops["st"])))
+    fn = jax.jit(wrap)
+    _FN_CACHE[key] = fn
+    return fn
 
 
-def make_runner(batch):
-    """Upload the batch once and return a zero-upload callable (see
-    device_huf.make_runner)."""
-    jax, jnp, pl, pltpu = _jax()
-    W = batch.words.shape[0]
+def decode_lanemajor(ops: dict, interpret: bool | None = None):
+    """Decode every lane of `ops` (the native planner's lane-major
+    operands, or prepare_batch's): words [n, W] i32, ll [n, 512],
+    of [n, 256], ml [n, 512], st [n, 8] (resolved initial state: pos, r0,
+    r1, r2, ll, of, ml states), n_seq [n], t_max.  Returns (ll, ml, of)
+    int32 device arrays of shape [lane_bucket(n), bucket_t(t_max)]; rows
+    from n on are empty lanes (n_seq 0, all zeros)."""
+    import jax
+    import jax.numpy as jnp
+
+    interpret = resolve_interpret(interpret)
+    n, W = ops["words"].shape
     if W > MAX_W:
-        raise ValueError(f"stream too long for device tier: {W}")
-    W_pad = next(b for b in _W_BUCKETS if b >= W)
-    words = np.zeros((W_pad, SUB, LN), np.int32)
-    words[:W] = batch.words
-    T = next(b for b in _T_BUCKETS if b >= max(batch.t_max, 1))
-    interpret = not _target_is_tpu()
-    fn = _decode_fn(T, W_pad, interpret)
-    llp, mlp = _shared_tables()
-    st = initial_states(batch)
+        raise ValueError(f"stream too long for device tier: {W} > {MAX_W}")
+    NL = lane_bucket(n)
+    fn = _decode_fn(NL, W, bucket_t(ops["t_max"]), interpret)
     with jax.enable_x64(False):
-        ops = [jax.device_put(jnp.asarray(x)) for x in
-               (words, batch.ll_tab, batch.of_tab, batch.ml_tab, llp, mlp,
-                st)]
-
-    def run():
-        with jax.enable_x64(False):
-            return fn(*ops)
-
-    return run
+        return fn(*(jnp.asarray(pad_lanes(ops[k], NL)) for k in (
+            "words", "ll", "of", "ml", "st", "n_seq")))

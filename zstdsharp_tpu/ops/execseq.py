@@ -1,7 +1,7 @@
 """On-device LZ sequence execution (ZSTD_execSequence:2187 role).
 
 The serial window dependency of LZ reconstruction is reformulated as a
-data-parallel three-stage pipeline — the canonical TPU shape (SURVEY.md
+data-parallel three-stage pipeline (SURVEY.md
 §2.2 "parallel prefix over output positions + segmented gather"; see
 PAPERS.md "Massively-Parallel Lossless Data Decompression"):
 
@@ -17,8 +17,8 @@ PAPERS.md "Massively-Parallel Lossless Data Decompression"):
 3. **Final gather** from the concatenated (literals ‖ window) pool.
 
 Everything is static-shaped and jit-compiled once per (B, S, L, W, O)
-bucket; batching B independent blocks per call is where the VPU width
-goes.  Overlap semantics (offset < length) fall out byte-exactly because
+bucket; batching B independent blocks per call is where the device's
+parallelism goes.  Overlap semantics (offset < length) fall out byte-exactly because
 resolution follows the byte-level definition, not memcpy order.
 """
 

@@ -1,23 +1,12 @@
-"""Byte histograms on TPU (HIST_count_parallel_wksp role, Hist.cs:67).
-
-Scatter-add histograms are slow on TPU (arbitrary scatter ~100M elem/s); the
-TPU-native formulation is compare-against-iota + reduce, which maps onto the
-VPU as dense elementwise work.  Provided as:
-
-* :func:`histogram_u8` — pure-XLA formulation (works everywhere, fast on TPU)
-* :func:`histogram_u8_pallas` — Pallas kernel with a VMEM accumulator and a
-  grid over chunks (double-buffered by the pipeline), the pattern the other
-  codec kernels follow.
-"""
+"""Byte histograms on the device (HIST_count_parallel_wksp role,
+Hist.cs:67), as a compare-against-iota + reduce that XLA fuses into one
+dense pass.  Whether a scatter-add form is faster on the GPU is an open
+question (ROADMAP §3)."""
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-_CHUNK = 1 << 19  # bytes per grid step (pipelined HBM->VMEM)
 
 
 def histogram_u8(data: jax.Array, mask: jax.Array | None = None) -> jax.Array:
@@ -28,56 +17,3 @@ def histogram_u8(data: jax.Array, mask: jax.Array | None = None) -> jax.Array:
     if mask is not None:
         eq = eq & mask.reshape(-1, 1)
     return jnp.sum(eq, axis=0, dtype=jnp.int32)
-
-
-_SUB = 4096  # bytes compared per inner step ([SUB, 256] i32 = 4 MiB in VMEM)
-
-
-def _hist_kernel(x_ref, out_ref, acc_ref):
-    i = pl.program_id(0)
-
-    @pl.when(i == 0)
-    def _():
-        acc_ref[...] = jnp.zeros_like(acc_ref)
-
-    syms = jax.lax.broadcasted_iota(jnp.int32, (_SUB, 256), 1)
-
-    def body(k, acc):
-        chunk = x_ref[0, pl.ds(k * _SUB, _SUB)].astype(jnp.int32)
-        eq = (chunk.reshape(_SUB, 1) == syms).astype(jnp.int32)
-        return acc + jnp.sum(eq, axis=0, keepdims=True)
-
-    acc_ref[...] = jax.lax.fori_loop(0, _CHUNK // _SUB, body, acc_ref[...])
-
-    @pl.when(i == pl.num_programs(0) - 1)
-    def _():
-        out_ref[...] = acc_ref[...]
-
-
-def histogram_u8_pallas(data: jax.Array, interpret: bool = False) -> jax.Array:
-    """Pallas histogram over a uint8 vector (padded to the chunk size).
-
-    Mosaic has no 64-bit types; the kernel is traced with x64 disabled (the
-    rest of the ops package enables it for the codec's u64 windows).
-    """
-    n = data.shape[0]
-    padded = ((n + _CHUNK - 1) // _CHUNK) * _CHUNK
-    if padded != n:
-        data = jnp.concatenate([data, jnp.zeros(padded - n, jnp.uint8)])
-    grid = padded // _CHUNK
-    with jax.enable_x64(False):
-        out = pl.pallas_call(
-            _hist_kernel,
-            out_shape=jax.ShapeDtypeStruct((1, 256), jnp.int32),
-            grid=(grid,),
-            in_specs=[pl.BlockSpec((1, _CHUNK), lambda i: (0, i),
-                                   memory_space=pltpu.VMEM)],
-            out_specs=pl.BlockSpec((1, 256), lambda i: (0, 0),
-                                   memory_space=pltpu.VMEM),
-            scratch_shapes=[pltpu.VMEM((1, 256), jnp.int32)],
-            interpret=interpret,
-        )(data.reshape(1, padded))
-    counts = out[0]
-    if padded != n:
-        counts = counts.at[0].add(n - padded)  # remove zero padding
-    return counts

@@ -9,14 +9,14 @@ the last r bytes:
 
 so the serial recurrence collapses to r shifted adds.
 
-TPU-first design note: anchor placement is internal to the encoder (only
-the emitted sequences reach the wire), so instead of zstd's random 256-entry
-table -- whose lookup is a gather, the one operation TPUs punish -- this
-framework defines gear() ARITHMETICALLY:
+Design note: anchor placement is internal to the encoder (only the emitted
+sequences reach the wire), so instead of zstd's random 256-entry table --
+whose lookup is a per-byte gather -- this framework defines gear()
+ARITHMETICALLY:
 
     gear(b) = (((b + 1) * 0x9E3779B1) mod 2^32) >> 12, masked to r+8 bits
 
-making the whole scan branch-free VPU arithmetic that XLA fuses into a
+making the whole scan branch-free elementwise arithmetic that XLA fuses into a
 single elementwise kernel; the native engine (native/zstdtpu_core.cpp:
 ldm_init) computes the same function, so device anchors equal host anchors
 bit-for-bit.  Multiplicative hashing gives the ~2^-r split probability the

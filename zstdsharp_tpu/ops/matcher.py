@@ -1,8 +1,8 @@
 """Device match finder: batched greedy LZ parse over independent blocks.
 
-The TPU-first reformulation of the fast strategy (SURVEY.md §7 step 4c):
+The data-parallel reformulation of the fast strategy (SURVEY.md §7 step 4c):
 
-1. hash every position (VPU elementwise),
+1. hash every position (elementwise),
 2. previous-occurrence candidates via one stable sort (XLA sort, no serial
    hash table),
 3. vectorized LCP extension (geometric probing),
@@ -90,9 +90,8 @@ parse_blocks = jax.vmap(parse_block, in_axes=(0, 0, None, None))
 def candidate_stage(block: jax.Array, hash_log: int = 16):
     """Gather-free candidate generation (the production device stage).
 
-    TPU arbitrary gathers run at ~100M elem/s, so instead of probing a hash
-    table we sort (hash, pos, first-8-bytes) with lax.sort carrying payloads
-    — sorts move operands through the network without gathers — and compare
+    Instead of probing a hash table (a gather per position), we sort
+    (hash, pos, first-8-bytes) with lax.sort carrying payloads and compare
     ADJACENT rows: the stable sort makes the predecessor within an equal-hash
     run exactly the most recent previous occurrence.
 
@@ -105,9 +104,9 @@ def candidate_stage(block: jax.Array, hash_log: int = 16):
     v64 = u64_at_every_byte(block)
     pos = jnp.arange(n, dtype=jnp.uint32)
     # Pack (hash, pos) into ONE sort key so a plain non-stable single-key
-    # sort replaces the stable 3-operand one (the sort is the wall: the
-    # whole stage runs within ~5% of a bare key sort on a v5e).  Blocks are
-    # <= 128KiB (17 position bits), so hash_log <= 15 packs into u32.
+    # sort replaces the stable 3-operand one (the sort dominates the stage).
+    # Blocks are <= 128KiB (17 position bits), so hash_log <= 15 packs into
+    # u32.
     pos_bits = max(int(n - 1).bit_length(), 1)
     if hash_log + pos_bits <= 32:
         h = hash4(v32, hash_log)
@@ -138,7 +137,7 @@ def parse_block_stats(block: jax.Array, n_valid: jax.Array, hash_log: int = 16):
     lit_count = n_valid - jnp.sum(jnp.where(real, r["mls"], 0))
     match_bytes = jnp.sum(jnp.where(real, r["mls"], 0))
     # Offset-code histogram (highbit of offset+3) for FSE table estimation,
-    # via compare-reduce (TPU-fast; scatter-add is ~100M elem/s on TPU).
+    # via compare-reduce (no scatter).
     ob = jnp.where(real, r["offs"] + 3, 1).astype(jnp.uint32)
     of_code = (31 - jnp.clip(jax.lax.clz(ob), 0, 31)).astype(jnp.int32)
     codes = jax.lax.broadcasted_iota(jnp.int32, (1, 32), 1)

@@ -1,9 +1,10 @@
 """Multi-chip data-parallel codec pipeline.
 
-Design (SURVEY.md §2.7, new for the TPU build — the reference is
+Design (SURVEY.md §2.7, new for the device build — the reference is
 single-threaded by construction): independent 128KB blocks sharded over a
 1-D ('data',) mesh; per-device batched parse (vmap over the block axis);
-global entropy statistics combined with `psum` over ICI; compressed payloads
+global entropy statistics combined with `psum` across devices (NCCL over
+NVLink on GPUs); compressed payloads
 all-gathered host-side in frame order.  TP/PP/EP/CP have no meaning for a
 codec and are intentionally absent.
 """
@@ -32,7 +33,7 @@ def _device_step(blocks: jax.Array, n_valid: jax.Array, hash_log: int):
     """Per-shard forward step: batched gather-free candidate generation.
 
     Runs under shard_map; blocks: uint8 [b, N] local shard.  A psum over the
-    data axis aggregates candidate counts (rides ICI; drives scheduling and
+    data axis aggregates candidate counts (a collective; drives scheduling and
     demonstrates the collective path the all-gather of payloads uses).
     """
     from ..ops.matcher import candidate_stage
@@ -93,7 +94,8 @@ def compress_data_parallel(data: bytes, mesh: Mesh | None = None,
     """
     mesh = mesh if mesh is not None else make_mesh()
     if level >= 3:
-        return _compress_framewise_parallel(data, mesh, level, checksum)
+        return _compress_framewise_parallel(data, mesh, level, checksum,
+                                            telemetry)
     from ..encode.frame import _block_header, _write_frame_header
     from ..utils.xxhash import content_checksum
 
@@ -136,6 +138,7 @@ def compress_data_parallel(data: bytes, mesh: Mesh | None = None,
             "blocks": n_blocks,
             "parse_ms": round(t_parse * 1e3, 1),
             "body_ms": round((_time.perf_counter() - t0) * 1e3, 1),
+            "shard_devices": _shard_devices(out_shards["cand"]),
         })
     if body is None:
         # no native engine: fall back to the host exact encoder
@@ -148,8 +151,14 @@ def compress_data_parallel(data: bytes, mesh: Mesh | None = None,
     return bytes(out)
 
 
+def _shard_devices(arr) -> list:
+    """The devices holding the shards of a sharded result."""
+    return sorted({str(s.device) for s in arr.addressable_shards})
+
+
 def _compress_framewise_parallel(data: bytes, mesh: Mesh, level: int,
-                                 checksum: bool) -> bytes:
+                                 checksum: bool,
+                                 telemetry: dict | None = None) -> bytes:
     """Frame-granular DP for levels >= 3: one job per device shard, each
     compressed at the requested level; the sharded device stage's candidate
     density routes incompressible jobs to raw frames."""
@@ -187,6 +196,8 @@ def _compress_framewise_parallel(data: bytes, mesh: Mesh, level: int,
     shards = parse(jnp.asarray(blocks), jnp.asarray(n_valid))
     cand = np.asarray(shards["cand"])
     density = (cand[: len(chunks)] >= 0).mean(axis=1)
+    if telemetry is not None:
+        telemetry["shard_devices"] = _shard_devices(shards["cand"])
 
     def raw_frame(chunk: bytes) -> bytes:
         from ..utils.xxhash import content_checksum
@@ -223,7 +234,7 @@ def decompress_data_parallel(stream: bytes, mesh: Mesh | None = None,
 
     - frames inside the device envelope (single-block, <= 128KB content;
       see decode/device_pipeline.py) are round-robin sharded across the
-      mesh's devices and decoded THERE — Pallas entropy kernels + the
+      mesh's devices and decoded THERE — Triton entropy kernels + the
       pointer-jumping LZ executor, one shard pipeline per device via
       jax.default_device (frames are independent; no collectives needed,
       matching SURVEY §2.7's DP design);
@@ -282,30 +293,31 @@ def decompress_data_parallel(stream: bytes, mesh: Mesh | None = None,
         def run_shard(d: int):
             idxs = shards[d]
             if not idxs:
-                return d, [], 0.0
+                return d, [], {}, 0.0
             ts = time.perf_counter()
             with jax.default_device(devices[d]):
-                outs, _stats = decode_batch_device(
+                outs, stats = decode_batch_device(
                     [frames[i] for i in idxs], materialize=True)
-            return d, outs, time.perf_counter() - ts
+            return d, outs, stats, time.perf_counter() - ts
 
         # one dispatcher thread per device so shard pipelines overlap
         # (device compute is async; the host stages release the GIL)
         with ThreadPoolExecutor(max_workers=ndev) as pool:
-            for d, outs, dt in pool.map(run_shard, range(ndev)):
+            for d, outs, stats, dt in pool.map(run_shard, range(ndev)):
                 idxs = shards[d]
                 for i, r in zip(idxs, outs):
                     results[i] = r
                 if idxs:
                     shard_stats.append({
-                        "device": str(devices[d]),
+                        # the devices that hold the shard's decoded rows
+                        "devices": stats["devices"],
                         "frames": len(idxs),
                         "bytes": sum(len(r) for r in outs if r is not None),
                         "ms": round(dt * 1e3, 1),
                     })
 
         # Payload assembly as a mesh collective (SURVEY §2.7: all-gather of
-        # payloads over ICI): each device contributes its shard's decoded
+        # payloads across devices): each device contributes its shard's decoded
         # bytes as one padded row of a P('data')-sharded array; a shard_map
         # all_gather replicates the full payload on every device, so
         # device-resident consumers see the assembled stream without any
@@ -418,16 +430,21 @@ def compress_records_device(records, mesh: Mesh | None = None,
                 [records[i] for i in idxs], materialize=True)
         return d, frames, stats
 
+    shard_stats = []
     with ThreadPoolExecutor(max_workers=ndev) as pool:
         for d, frames, stats in pool.map(run_shard, range(ndev)):
             for i, f in zip(shards[d], frames):
                 results[i] = f
             if stats:
                 stats_all.append(stats)
+                # the devices that hold the shard's frame rows
+                shard_stats.append({"devices": stats["devices"],
+                                    "frames": len(shards[d])})
     if telemetry is not None:
         telemetry["ms"] = round((time.perf_counter() - t0) * 1e3, 1)
         telemetry["device_frames"] = sum(
             s["device_frames"] for s in stats_all)
         telemetry["host_frames"] = sum(s["host_frames"] for s in stats_all)
         telemetry["shards"] = ndev
+        telemetry["device_shards"] = shard_stats
     return results

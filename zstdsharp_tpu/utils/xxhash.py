@@ -7,7 +7,8 @@ Two implementations:
 
 * :func:`xxh64` — numpy implementation structured for lane-parallelism:
   the 4 accumulator lanes each fold every 4th 8-byte word, which is the
-  same stripe structure a Pallas port uses (VPU lanes across many streams).
+  same stripe structure a batched device port uses (lanes across many
+  streams).
 * :func:`xxh64_fast` — dispatches to the ``xxhash`` C module when present
   (oracle/fast path), else falls back to the numpy one.
 """
